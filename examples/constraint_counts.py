@@ -25,6 +25,7 @@ from falcon_r1cs_tpu.circuits import const_q_power_vars
 from falcon_r1cs_tpu.falcon import make_instance, ntt
 from falcon_r1cs_tpu.gadgets import NTTPolyVar, PolyVar, ntt_param_var
 from falcon_r1cs_tpu.params import get_params
+from falcon_r1cs_tpu.utils.compile_cache import configure_compile_cache
 
 
 def count_ntt_conversion(params, rng):
@@ -73,6 +74,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, choices=(512, 1024), default=None)
     args = ap.parse_args()
+    configure_compile_cache()
     ns = [args.n] if args.n else [512, 1024]
     rng = np.random.default_rng(0)
     for n in ns:

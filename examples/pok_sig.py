@@ -5,7 +5,7 @@ Reference flow (pok_sig.rs:15-47):
   keygen -> sign -> build circuit -> Groth16 setup -> prove -> verify.
 
 This example runs the same end-to-end pipeline with our components, plus
-the TPU-side stages the reference doesn't have:
+the device stages the reference doesn't have:
 
   real NTRU keygen + signing -> circuit synthesis (cached COO) ->
   batched device witness generation -> device CRT satisfiability check ->
@@ -30,10 +30,12 @@ from falcon_r1cs_tpu.parallel.sat_check import ResidueSystem
 from falcon_r1cs_tpu.r1cs.coo import cache_dir, compile_circuit
 from falcon_r1cs_tpu.snark import prove, setup, verify
 from falcon_r1cs_tpu.snark.groth16 import load_pk, save_pk
+from falcon_r1cs_tpu.utils.compile_cache import configure_compile_cache
 from falcon_r1cs_tpu.witness import interleave_witness, jitted_engine
 
 
 def main():
+    configure_compile_cache()
     rng = np.random.default_rng(0)
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     params = get_params(n)

@@ -1,11 +1,11 @@
-"""falcon_r1cs_tpu: TPU-native R1CS constraint synthesis and batched witness
-generation for Falcon signature verification.
+"""falcon_r1cs_tpu: R1CS constraint synthesis, batched device witness
+generation and Groth16 proving for Falcon signature verification.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A brand-new JAX/XLA framework with the capabilities of the reference
 Rust crate zhenfeizhang/falcon-r1cs (studied at /root/reference; see
 SURVEY.md).  Public surface mirrors the reference's
 (`/root/reference/falcon-r1cs/src/lib.rs:1-8`): the three circuits plus the
-whole gadget layer, extended with the TPU-native subsystems the reference
+whole gadget layer, extended with the device subsystems the reference
 lacks (batched witness engine, device-mesh sharding, sparse satisfiability
 checking).
 """

@@ -74,6 +74,9 @@ def main(argv: list[str]) -> int:
         return 0
     cmd, rest = argv[0], argv[1:]
     _with_repo_path()
+    from falcon_r1cs_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     if cmd == "counts":
         sys.argv = ["constraint_counts.py", *rest]
         from examples.constraint_counts import main as counts_main

@@ -1,4 +1,4 @@
-"""Clear-side Falcon primitives (the TPU-native `falcon_core` layer).
+"""Clear-side Falcon primitives (the JAX-native `falcon_core` layer).
 
 Replaces the reference's falcon-rust dependency (SURVEY.md section 2.3):
 polynomials/NTT over Z_q, hash-to-point, wire codecs, verification, and

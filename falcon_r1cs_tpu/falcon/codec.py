@@ -1,6 +1,6 @@
 """Falcon wire-format codecs: public keys and compressed signatures.
 
-TPU-native equivalent of the encode/decode layer the reference inherits from
+JAX-native equivalent of the encode/decode layer the reference inherits from
 falcon-rust (`(&Signature).into::<Polynomial>()`, `(&PublicKey).into()`,
 `Signature::nonce()` -- use sites
 `/root/reference/falcon-r1cs/src/circuits/falcon_ntt.rs:27-28,44`).

@@ -1,6 +1,6 @@
 """Falcon hash-to-point: SHAKE256 rejection sampling, bit-exact per spec.
 
-TPU-native equivalent of falcon-rust's `Polynomial::from_hash_of_message`
+JAX-native equivalent of falcon-rust's `Polynomial::from_hash_of_message`
 (used at `/root/reference/falcon-r1cs/src/circuits/falcon_ntt.rs:44` and
 `/root/reference/falcon-r1cs/examples/pok_sig.rs:35`).  Per the Falcon
 specification ("HashToPoint"): SHAKE256 over (40-byte nonce || message);
@@ -62,5 +62,5 @@ def hash_to_point_batch(msgs, nonces, n: int) -> np.ndarray:
         from ..native import native_hash_to_point_batch
 
         return native_hash_to_point_batch(msgs, nonces, n)
-    except (ImportError, OSError):
+    except (ImportError, OSError, RuntimeError):
         return np.stack([hash_to_point(m, nc, n) for m, nc in zip(msgs, nonces)])

@@ -17,7 +17,7 @@ rings") NTRU solver:
     multiply does the convolution).
 
 Pure host-side code: keygen exists to produce test vectors / benchmark
-inputs and is off the TPU hot path (as in the reference, where it lives in
+inputs and is off the device hot path (as in the reference, where it lives in
 C behind FFI).
 """
 

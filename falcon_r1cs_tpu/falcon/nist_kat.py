@@ -1,6 +1,6 @@
 """NIST KAT harness: the official Falcon `.rsp` vector format, end to end.
 
-Closes the round-4 VERDICT gap (#5 / PARITY_NOTES caveat (d)): the
+Closes PARITY_NOTES caveat (d): the
 reference repo inherits bit-compatible keygen/sign through falcon-rust's
 FFI into the Falcon reference C (`/root/reference/falcon-r1cs/
 Cargo.toml:11`, used at `src/circuits/falcon_ntt.rs:133-141`), so its

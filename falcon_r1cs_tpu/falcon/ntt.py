@@ -1,11 +1,11 @@
 """Clear-side (non-circuit) NTT over Z_q, numpy and batched-JAX flavors.
 
-TPU-native equivalent of the falcon-rust polynomial layer's clear NTT
+JAX-native equivalent of the falcon-rust polynomial layer's clear NTT
 (`NTTPolynomial::from(&Polynomial)`, used at
 `/root/reference/falcon-r1cs/src/circuits/falcon_ntt.rs:45,51`).  The loop
 structure mirrors the Falcon C `mq_NTT` / the reference circuit loop
 (`/root/reference/falcon-r1cs/src/gadgets/poly.rs:116-149`) but is expressed
-stage-wise over whole coefficient tensors so it vectorizes on the VPU and
+stage-wise over whole coefficient tensors so it vectorizes on the device and
 vmaps over a batch axis.
 """
 

@@ -1,6 +1,6 @@
 """Polynomial value types over Z_q: the clear-side data layer.
 
-TPU-native equivalent of the falcon-rust polynomial layer (`Polynomial`,
+JAX-native equivalent of the falcon-rust polynomial layer (`Polynomial`,
 `NTTPolynomial`, `DualPolynomial` -- see SURVEY.md section 2.3 and use sites
 `/root/reference/falcon-r1cs/src/circuits/falcon_ntt.rs:27-28,44-51`,
 `/root/reference/falcon-r1cs/src/circuits/falcon_dual_ntt.rs:27,47-51`).

@@ -1,6 +1,6 @@
 """Discrete-Gaussian samplers for keygen and signing (Falcon-spec shaped).
 
-Replaces the round-1 approximations (VERDICT items: rounded-normal f/g,
+Replaces the round-1 approximations (rounded-normal f/g,
 O(sigma) weight-vector z sampler):
 
 - `sample_fg_spec`: the Falcon keygen distribution exactly as the spec

@@ -190,8 +190,7 @@ class Signer:
         `/root/reference/falcon-r1cs/src/circuits/falcon_ntt.rs:136-138`):
         the nonce is derived as SHAKE256(seed || msg)[:40].
 
-        spec_exact=True (the KAT-ready flag; round-2 VERDICT #6 for the
-        RNG layer, round-3 VERDICT #4 for the rest) runs the FULL
+        spec_exact=True (the KAT-ready flag) runs the FULL
         reference-implementation-exact signer: ChaCha20 PRNG + RCDT
         SamplerZ (falcon/spec_rng.py) under the reference C's
         double-precision FFT/Gram/dynamic-LDL-tree ffSampling in its

@@ -1,6 +1,6 @@
 """Spec-exact Falcon signing RNG: ChaCha20 PRNG + RCDT SamplerZ.
 
-KAT-readiness layer (round-2 VERDICT Next #6).  The reference repo's
+KAT-readiness layer.  The reference repo's
 signing randomness is the Falcon reference C behind falcon-rust FFI
 (/root/reference/falcon-r1cs/Cargo.toml:11, used from
 examples/pok_sig.rs:15-21); `falcon/sampler.py` here is spec-SHAPED

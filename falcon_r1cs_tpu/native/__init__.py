@@ -1,48 +1,39 @@
 """Native host-side primitives: ctypes bindings for falcon_native.c.
 
-Build-on-first-import (gcc, cached beside the source); no pybind11 needed.
-Falls back cleanly (ImportError) so pure-Python paths keep working when no
-compiler is present.
+Built on first use by gcc into the gitignored build directory (see
+native/build.py); no pybind11 needed.  A failed build raises
+RuntimeError, which the pipeline's codec treats as "no native library"
+and answers with the pure-Python codec.
 """
 
 from __future__ import annotations
 
 import ctypes
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "falcon_native.c"
-_SO = _HERE / "_falcon_native.so"
 
 _lib = None
-
-
-def _build() -> None:
-    cmd = [
-        "gcc", "-O3", "-shared", "-fPIC", "-march=native", "-fopenmp",
-        str(_SRC), "-o", str(_SO),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        # retry without openmp/march (portability)
-        subprocess.run(
-            ["gcc", "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(_SO)],
-            check=True,
-            capture_output=True,
-        )
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        _build()
-    lib = ctypes.CDLL(str(_SO))
+    from .build import build_library
+
+    common = ["gcc", "-O3", "-shared", "-fPIC"]
+    so = build_library(
+        "falcon_native",
+        [_SRC],
+        # the portable build is the fallback where OpenMP is missing
+        [common + ["-march=native", "-fopenmp", str(_SRC)],
+         common + [str(_SRC)]],
+    )
+    lib = ctypes.CDLL(str(so))
     lib.hash_to_point_batch.argtypes = [
         ctypes.c_char_p,
         ctypes.POINTER(ctypes.c_int64),

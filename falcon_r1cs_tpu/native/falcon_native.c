@@ -1,6 +1,6 @@
 /* Native host-side Falcon primitives: SHAKE256 + batched hash-to-point.
  *
- * TPU-native-framework equivalent of the reference's native substrate
+ * Framework equivalent of the reference's native substrate
  * (falcon-rust wrapping the Falcon reference C, SURVEY.md section 2.3):
  * hash-to-point is inherently sequential rejection sampling per message and
  * lives on the host hot path of batched witness generation

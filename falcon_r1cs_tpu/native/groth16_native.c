@@ -2587,6 +2587,20 @@ void fr_batch_to_mont(const u64 *in, long n, u64 *out) {
 
 /* ----------------------------------------------------- self-check ------ */
 
+/* the widest field-arithmetic tier this build compiled in: the IFMA
+ * 8-lane MSM/FFT tier implies the ADX scalar core where both exist */
+const char *g16_field_tier(void) {
+#if defined(HAVE_IFMA52) && defined(HAVE_ADX_MONT)
+  return "ifma52+adx";
+#elif defined(HAVE_IFMA52)
+  return "ifma52";
+#elif defined(HAVE_ADX_MONT)
+  return "adx";
+#else
+  return "portable";
+#endif
+}
+
 /* returns 0 on success; exercises field round-trips for the build sanity
  * check in the Python loader */
 int g16_selftest(void) {

@@ -1,8 +1,7 @@
-"""BLS12-381 base-field (Fq, 381-bit) lazy Montgomery arithmetic on TPU.
+"""BLS12-381 base-field (Fq, 381-bit) lazy Montgomery arithmetic on the device.
 
-The Groth16 prover's MSMs are the one hot path the round-1 VERDICT asked
-to try on-device ("move the provers' MSMs onto the TPU with the existing
-limb machinery").  This module is that experiment's core primitive:
+The Groth16 prover's MSMs are the hot path of proving; this module is
+the device MSM's core primitive (snark/tpu_msm.py):
 batched Montgomery multiplication over signed 12-bit limb tensors with
 NO cross-lane carry/borrow scans anywhere in the data path.
 
@@ -12,7 +11,7 @@ built first and measured.  Composed into the elliptic group law, XLA
 compiled each Jacobian point-add to ~285 ms on CPU (~50x the sum of its
 parts) and took minutes per MSM compile — the comparison-heavy carry
 scans defeat both fusion and codegen.  The lazy design below keeps every
-op elementwise/shift-local (pure VPU work on TPU) and recovers exact
+op elementwise/shift-local (pure vector work) and recovers exact
 carries arithmetically instead of structurally.
 
 Representation ("relaxed" limbs):
@@ -36,13 +35,16 @@ Core tricks:
     result's headroom limb (the fold is <= 2 by the value bound).
   - the exact divide-by-R in Montgomery reduction: T + m*q is an exact
     multiple of R; its low 34 limbs form k*R for a small k recovered by
-    one float32 dot (error << 0.5, see `_carry_estimate`), so the shift
-    is a slice plus one scalar add — no carry scan.
+    one float32 weighted sum (error << 0.5, see `_carry_estimate`), so
+    the shift is a slice plus one scalar add — no carry scan.
   - equality/zero tests (`is_zero_mod_q`): subtract the f32-estimated
     quotient alpha*q, then prove the remainder is literally zero via CRT
-    residues modulo 30 13-bit primes (one int32 dot + f32-reciprocal
-    mod-p) — product of the primes exceeds q, so all-zero residues of a
-    |z| < q/2 value imply z == 0.
+    residues modulo 30 13-bit primes (elementwise int32 products + sum,
+    f32-reciprocal mod-p) — product of the primes exceeds q, so all-zero
+    residues of a |z| < q/2 value imply z == 0.
+  - no matrix products anywhere: every limb product is elementwise int32
+    (exact on every backend; a GPU dot_general may compute in floating
+    point or autotune thousands of GEMMs at compile time).
 
 Reference role: replaces the host/C Pippenger field core for the
 device MSM (snark/tpu_msm.py); differentially tested against the
@@ -74,7 +76,7 @@ def _to_limb_vec(v: int, n: int) -> np.ndarray:
 Q_LIMBS = _to_limb_vec(Q381, NL)
 MU_LIMBS = _to_limb_vec(MU, NSIG)  # mu < 2^408
 # f32 weights recovering k = value(low 34 limbs) / 2^408 (|k| <= 2):
-# terms are exact powers of two times <= 2^13 ints, so the dot's error
+# terms are exact powers of two times <= 2^13 ints, so the sum's error
 # is bounded by 34 roundings of magnitude <= 2^-23 — far below 0.5.
 _CARRY_W = np.asarray(
     [float(2.0 ** (LIMB * i - R_BITS)) for i in range(NSIG)], dtype=np.float32
@@ -186,59 +188,9 @@ def _big_mul(a, b, ncols: int = PROD):
     return jnp.concatenate([out, pad], axis=-1)
 
 
-def _toeplitz(vec, nin: int) -> np.ndarray:
-    """Banded Toeplitz matrix of a fixed limb vector: (x @ T)[c] =
-    sum_i x_i vec_{c-i} — the anti-diagonal fold of _big_mul with one
-    operand constant, as a matmul."""
-    T = np.zeros((nin, PROD), dtype=np.int32)
-    for i in range(nin):
-        for j, v in enumerate(vec):
-            T[i, i + j] = int(v)
-    return T
-
-
-def _dec8(T):
-    """Split a <2^12 nonneg matrix into two int8 base-64 planes."""
-    return (T & 63).astype(np.int8), (T >> 6).astype(np.int8)
-
-
-_T_MU0, _T_MU1 = _dec8(_toeplitz(MU_LIMBS, NSIG))
-_T_Q0, _T_Q1 = _dec8(_toeplitz(Q_LIMBS, NL))
-
-
-def _const_mul(x, T0, T1):
-    """Fixed-operand limb product as int8 MXU matmuls.
-
-    Two of mont_mul's three limb products have a CONSTANT operand (mu
-    and q).  Splitting both sides into base-64 planes turns each into
-    four (.., nin) @ (nin, 71) int8->int32 matmuls that ride the MXU
-    instead of the VPU outer-product + skew fold: measured 2.9x the
-    whole mont_mul on a v5e (ENGINEERING.md "TPU MSM").  Exact: per-dot
-    magnitudes <= 35 * 65 * 63 and the <<12 recombination stays below
-    2^31.  x = (x >> 6) * 64 + (x & 63) holds for signed x too
-    (arithmetic shift + two's-complement mask)."""
-    import jax.numpy as jnp
-    from jax import lax
-
-    x0 = jnp.bitwise_and(x, 63).astype(jnp.int8)
-    x1 = jnp.right_shift(x, 6).astype(jnp.int8)
-
-    def d(a, M):
-        return lax.dot_general(
-            a, jnp.asarray(M), (((a.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-
-    y00 = d(x0, T0)
-    y01 = d(x0, T1)
-    y10 = d(x1, T0)
-    y11 = d(x1, T1)
-    return y00 + ((y01 + y10) << 6) + (y11 << 12)
-
-
 def _carry_estimate(s_low):
     """k = value(s_low) / 2^408 for a 34-limb slice whose value is an
-    exact multiple of 2^408 (|k| <= 2).  One f32 dot + round."""
+    exact multiple of 2^408 (|k| <= 2).  One f32 weighted sum + round."""
     import jax.numpy as jnp
 
     est = (s_low.astype(jnp.float32) * jnp.asarray(_CARRY_W)).sum(axis=-1)
@@ -260,13 +212,13 @@ def mont_mul(a, b):
     import jax.numpy as jnp
 
     t_full = _semi(_big_mul(a, b))                     # exact T, 71 cols
-    m = _semi(_const_mul(t_full[..., :NSIG], _T_MU0, _T_MU1))[..., :NSIG]
+    m = _semi(_big_mul(t_full[..., :NSIG], MU_LIMBS))[..., :NSIG]
     # m's spill columns are dropped: multiples of R vanish mod R, and
     # the rep overshoot (|m| <= R (1 + 2^-11)) is absorbed by headroom
     m_ext = jnp.concatenate(
         [m, jnp.zeros(m.shape[:-1] + (NL - NSIG,), m.dtype)], axis=-1
     )
-    u = _semi(_const_mul(m_ext, _T_Q0, _T_Q1))         # exact m*q
+    u = _semi(_big_mul(m_ext, Q_LIMBS))                # exact m*q
     s = _semi_round(t_full + u)                        # exact, == 0 mod R
     k = _carry_estimate(s[..., :NSIG])
     hi = s[..., NSIG : NSIG + NL]                      # exact shift by R
@@ -318,11 +270,11 @@ def from_mont(a_mont):
 def is_zero_mod_q(t):
     """Exact (t == 0 mod q) for relaxed reps with |value| <= ~2^15 q.
 
-    alpha = round(value/q) via one f32 dot (exact: the estimate error is
-    ~2^-17 relative), z = t - alpha q is then in (-q/2, q/2) and zero
-    iff t == 0 mod q.  z's 30 CRT residues mod 13-bit primes (int32 dot
-    + f32-reciprocal mod) are all zero iff z == 0, since the primes'
-    product exceeds q.  Elementwise + two small dots: no carry scans."""
+    alpha = round(value/q) via one f32 weighted sum (exact: the estimate
+    error is ~2^-17 relative), z = t - alpha q is then in (-q/2, q/2) and
+    zero iff t == 0 mod q.  z's 30 CRT residues mod 13-bit primes (int32
+    products + sum, f32-reciprocal mod) are all zero iff z == 0, since the
+    primes' product exceeds q.  Elementwise and sums only: no carry scans."""
     import jax.numpy as jnp
 
     alpha = jnp.round(
@@ -333,8 +285,9 @@ def is_zero_mod_q(t):
         [z, jnp.zeros(z.shape[:-1] + (_ZCOLS - NL,), z.dtype)], axis=-1
     )
     z = _semi(z, rounds=3)  # |limbs| <= 2^12 + 2, spare cols absorb tops
-    r = jnp.einsum("...i,ij->...j", z, jnp.asarray(_CRT_W),
-                   preferred_element_type=jnp.int32)
+    # elementwise products and an int32 sum, not a dot: |r| < 2^30.3 is
+    # exact in int32, while a GPU dot may run in floating point
+    r = (z[..., :, None] * jnp.asarray(_CRT_W)).sum(axis=-2)
     kq = jnp.round(r.astype(jnp.float32) * jnp.asarray(_CRT_RECIP)).astype(
         jnp.int32
     ) * jnp.asarray(_CRT_PRIMES)

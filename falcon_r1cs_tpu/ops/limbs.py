@@ -8,8 +8,8 @@ arbitrary-precision arithmetic (the reference's num-bigint hints,
 `arithmetics.rs:73-80`) is needed on device.
 
 Layout: the limb axis LEADS -- tensors are (L, ...batch/coeff...) int32 --
-so the trailing two axes stay (batch, n) and tile the VPU's (8, 128) lanes
-with no padding waste.  All ops are elementwise over the trailing axes and
+so the trailing two axes stay (batch, n), contiguous per limb row, with
+no padding waste.  All ops are elementwise over the trailing axes and
 jit/vmap/shard_map-friendly.
 
 Value representations:

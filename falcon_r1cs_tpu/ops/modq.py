@@ -1,20 +1,24 @@
-"""Division-free mod-q arithmetic for int32 TPU lanes.
+"""Division-free mod-q arithmetic for int32 lanes.
 
-The VPU has no native integer divide; XLA lowers `//`/`%` by q to long
-division, which dominated early engine profiles.  For the ranges these
-circuits need (x < 2^30), an f32 reciprocal multiply gives the quotient
-within +-1 (f32 ulp at 2^30 is 2^6, so the quotient error is
-< (2^6 + Q/2)/Q < 1), fixed up with two predicated corrections -- ~8 cheap
-VPU ops, exact for all inputs in range.
+For the ranges these circuits need (x < 2^30), an f32 reciprocal multiply
+gives the quotient within +-1 (f32 ulp at 2^30 is 2^6, so the quotient
+error is < (2^6 + Q/2)/Q < 1), fixed up with two predicated corrections --
+~8 cheap elementwise ops, exact for all inputs in range, that fuse into
+their neighbours instead of a long division per element.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
 from ..params import Q
 
-_INV_Q_F32 = jnp.float32(1.0 / Q)
+# a numpy scalar, not a jax Array: a module-level device array captured
+# by several jitted programs makes this JAX (0.9.0) pass the constants of
+# a later specialization as arguments its fast call path then omits
+# ("compiled program expected N buffers" on the second call)
+_INV_Q_F32 = np.float32(1.0 / Q)
 
 
 def divmod_q(x):

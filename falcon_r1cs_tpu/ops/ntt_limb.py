@@ -37,11 +37,11 @@ from .limbs import (
 def _semi_norm(x):
     """One parallel carry round: (x & 0xFFFF) + shift_up(x >> 16).
 
-    Limbs stay in [-3, 2^16 + 2] (see tools/pallas_ntt_v3.py for the bound
-    derivation), which keeps limb * s inside int32 for the next stage while
-    preserving the redundant value exactly -- and replaces the 11-step
-    sequential carry chain with two whole-tensor passes, cutting the XLA
-    path's HBM traffic ~4x."""
+    Carries move one limb per round, so limbs stay in [-3, 2^16 + 2]: that
+    keeps limb * s inside int32 for the next stage while preserving the
+    redundant value exactly, and with one limb of headroom (192 bits over
+    the 164-bit bound) the top limb never carries out.  Two whole-tensor
+    passes replace the 11-step sequential carry chain."""
     low = jnp.bitwise_and(x, 0xFFFF)
     carry = jnp.right_shift(x, 16)  # arithmetic shift: signed-safe
     shifted = jnp.concatenate(
@@ -92,41 +92,24 @@ def ntt_with_hints(x, params: FalconParams, num_limbs: int = NUM_LIMBS):
     return t_limbs[:num_limbs], b
 
 
-def ntt_hints(x, params: FalconParams, use_pallas: bool = False):
-    """Backend dispatch for the limb NTT: the fused Pallas kernel (about
-    1.5x faster on-device when Mosaic is available) or the XLA path."""
-    if use_pallas:
-        from .pallas_ntt import ntt_with_hints_pallas
-        from ..utils.config import get_config
+def ntt_hints(x, params: FalconParams, backend: str = "xla"):
+    """The hint NTT on the backend ops.backend.ntt_backend chose: the
+    CUDA kernel ("cuda") or the XLA path above ("xla")."""
+    if backend == "cuda":
+        from .ntt_cuda import ntt_with_hints_cuda
 
-        return ntt_with_hints_pallas(x, params, get_config().pallas_block)
+        return ntt_with_hints_cuda(x, params)
+    if backend != "xla":
+        raise ValueError(f"unknown hint-NTT backend {backend!r}")
     return ntt_with_hints(x, params)
 
 
-def intt_then_hints(w, params: FalconParams, use_pallas: bool = False):
+def intt_then_hints(w, params: FalconParams, backend: str = "xla"):
     """The v derivation chain: NTT-domain w = (hm - sig_ntt*pk) mod q ->
     (v_t limbs, v_b, v) where v = INTT(w) and (v_t, v_b) are its forward
-    hint-NTT outputs.
-
-    Default: XLA INTT composed with the hint-NTT backend — the fused
-    INTT-prologue Pallas kernel (pallas_ntt.intt_ntt_hints_pallas) is
-    bit-identical but measured SLOWER on a v5e (the prologue is
-    VPU-compute-bound at ~18 us/stage in Mosaic vs ~14 us/stage for
-    XLA's butterfly passes, both with f32-divmod and integer-Montgomery
-    reductions tried; BASELINE.md round-3 notes).  It stays available
-    behind FALCON_R1CS_TPU_FUSED_INTT=1 since the tradeoff is
-    backend-version-dependent."""
-    import os
-
-    if use_pallas and os.environ.get("FALCON_R1CS_TPU_FUSED_INTT") == "1":
-        from .pallas_ntt import intt_ntt_hints_pallas
-        from ..utils.config import get_config
-
-        return intt_ntt_hints_pallas(w, params, get_config().pallas_block)
+    hint-NTT outputs."""
     from ..falcon.ntt import intt_jax
 
     v = intt_jax(w, params.n)
-    t, b = ntt_with_hints(v, params) if not use_pallas else ntt_hints(
-        v, params, use_pallas
-    )
+    t, b = ntt_hints(v, params, backend)
     return t, b, v

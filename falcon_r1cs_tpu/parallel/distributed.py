@@ -3,10 +3,10 @@ input sharding, and the scaling-efficiency harness.
 
 The reference is single-process (SURVEY.md section 2.4); this module is the
 framework's multi-host layer.  No custom transport exists by design: XLA
-collectives ride ICI within a slice and DCN across hosts once
-jax.distributed is initialized.  On a single host everything degrades to
-the local device set, so the same code paths are exercised by the CPU-mesh
-tests and by a real pod.
+hands collectives to NCCL, over NVLink between the GPUs of a host and the
+network across hosts once jax.distributed is initialized.  On a single
+host everything degrades to the local device set, so the same code paths
+are exercised by the CPU-mesh tests and by a real cluster.
 """
 
 from __future__ import annotations
@@ -22,8 +22,9 @@ from ..params import Q
 
 
 def maybe_init_distributed() -> bool:
-    """Initialize jax.distributed from the standard env (JAX_COORDINATOR /
-    TPU pod env) when running multi-process; no-op on a single host.
+    """Initialize jax.distributed from the standard env (JAX_COORDINATOR
+    and its process count / id) when running multi-process; no-op on a
+    single host.
     Returns True if a multi-process cluster is active.
 
     The env check comes FIRST: jax.distributed.initialize must run before
@@ -93,7 +94,7 @@ def scaling_sweep(n: int = 1024, batch_per_device: int = 256):
     """Throughput at 1, 2, 4, ... local devices; efficiency vs linear.
 
     On a one-chip host this returns a single point; on a pod slice it
-    measures the DP scaling curve the BASELINE targets (>= 85%% multi-host
+    measures the DP scaling curve (>= 85%% multi-host
     efficiency).
     """
     from ..utils.profiling import throughput

@@ -1,7 +1,7 @@
 """Device-mesh construction and sharded witness generation.
 
 The reference has NO distributed machinery (SURVEY.md section 2.4: its only
-concurrency is rayon inside arkworks).  This module is the TPU-native
+concurrency is rayon inside arkworks).  This module is the device
 parallelism stack that replaces it:
 
   DP  ("batch" axis): signatures sharded across devices -- the realization
@@ -16,18 +16,19 @@ parallelism stack that replaces it:
       the LIMB axis (SURVEY 2.4's other candidate): structurally wrong
       here — the limb axis is 11-12 rows of 16-bit carries whose
       semi-normalization rounds propagate carry_k -> limb_{k+1}
-      sequentially, so a limb-sharded kernel would insert a ppermute
-      inside EVERY carry round of every butterfly stage (log-depth
-      serialized ICI hops to move 4-byte carries), while the whole limb
-      state for a batch block is ~3 MB — three orders of magnitude below
-      a v5e's VMEM pressure point.  The coeff ("SP") axis gives the same
+      sequentially, so a limb-sharded kernel would insert a collective
+      inside EVERY carry round of every butterfly stage to move 4-byte
+      carries, while one signature's whole limb state (44 KB) fits in a
+      thread block's shared memory.  The coeff ("SP") axis gives the same
       intra-signature scaling with one exchange per early NTT stage
       instead.  PP: built and measured 7.7x slower than DP at equal
       devices (parallel/pipeline_pp.py, PARITY_NOTES.md).  EP: no
       experts.
 
-Collectives ride ICI within a slice via XLA:TPU; multi-host extends the
-same mesh over DCN via jax.distributed (no custom transport, by design).
+XLA hands the collectives to NCCL, which runs them over NVLink between the
+cards of a host (every card reaches every other at the same rate, so the
+mesh shape follows the algorithm alone); multi-host extends the same mesh
+via jax.distributed (no custom transport, by design).
 """
 
 from __future__ import annotations
@@ -70,10 +71,9 @@ def sharded_engine(n: int, mesh_key=None):
 
     Implementation is shard_map (not GSPMD sharding hints):
       coeff axis == 1: each device runs the FULL local engine on its batch
-        shard — including the fused Pallas limb-NTT kernel when the
-        capability probe says Mosaic is available (this is what unifies
-        the fast kernel with the multi-device path: pallas_call sits
-        inside shard_map and never needs partitioning);
+        shard — including the platform's hint-NTT kernel (ops/backend.py;
+        the kernel call sits inside shard_map and never needs
+        partitioning);
       coeff axis > 1: the sequence-parallel local engine — hint NTTs use
         the explicit log2(D)-ppermute schedule of
         parallel/ntt_sharded.ntt_with_hints_local, the inverse NTT gathers
@@ -83,33 +83,22 @@ def sharded_engine(n: int, mesh_key=None):
     """
     from jax import shard_map
 
-    from ..ops.pallas_support import resolve_backend
-    from ..utils.config import get_config
+    from ..ops.backend import configured_ntt_backend
     from ..witness.engine import _seg_dict
 
     params = get_params(n)
     mesh = mesh_key
+    backend = configured_ntt_backend()
+
+    def local_full(sig, pk_ntt, hm_ntt):
+        wb = generate_witness_ntt(sig, pk_ntt, hm_ntt, params, backend)
+        return _seg_dict(wb)
 
     if mesh is None:
-        use_pallas = resolve_backend(get_config().use_pallas_ntt)
-
-        def run(sig, pk_ntt, hm_ntt):
-            wb = generate_witness_ntt(
-                sig, pk_ntt, hm_ntt, params, use_pallas
-            )
-            return _seg_dict(wb)
-
-        return jax.jit(run)
+        return jax.jit(local_full)
 
     d_coeff = mesh.shape["coeff"]
     if d_coeff == 1:
-        use_pallas = resolve_backend(get_config().use_pallas_ntt)
-
-        def local_full(sig, pk_ntt, hm_ntt):
-            wb = generate_witness_ntt(
-                sig, pk_ntt, hm_ntt, params, use_pallas
-            )
-            return _seg_dict(wb)
 
         out_specs = {
             "sig": P("batch", None), "v": P("batch", None),
@@ -275,20 +264,19 @@ _DUAL_LIMB_KEYS = frozenset(
 
 @functools.lru_cache(maxsize=None)
 def sharded_engine_dual(n: int, mesh_key):
-    """Batch-DP sharded dual-NTT witness engine (shard_map; the Pallas
-    kernel runs inside each shard when the capability probe allows)."""
+    """Batch-DP sharded dual-NTT witness engine (shard_map; the
+    platform's hint-NTT kernel runs inside each shard)."""
     from jax import shard_map
 
-    from ..ops.pallas_support import resolve_backend
-    from ..utils.config import get_config
+    from ..ops.backend import configured_ntt_backend
     from ..witness.engine_dual import generate_witness_dual
 
     params = get_params(n)
     mesh = mesh_key
-    use_pallas = resolve_backend(get_config().use_pallas_ntt)
+    backend = configured_ntt_backend()
 
     def local(sig, pk_ntt, hm_ntt):
-        return generate_witness_dual(sig, pk_ntt, hm_ntt, params, use_pallas)
+        return generate_witness_dual(sig, pk_ntt, hm_ntt, params, backend)
 
     shapes = jax.eval_shape(
         local,

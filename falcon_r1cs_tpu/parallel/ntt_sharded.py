@@ -6,8 +6,9 @@ Cooley-Tukey stage l pairs positions j and j + n/2^(l+1):
 
   * the first log2(D) stages pair across shards -- each shard exchanges its
     whole block with its butterfly partner (shard_id XOR D >> (l+1)) via
-    lax.ppermute over ICI, then computes its half of the butterflies
-    locally (within those stages a shard lies inside ONE twiddle group, so
+    lax.ppermute (NCCL over NVLink between GPUs), then computes its half
+    of the butterflies locally (within those stages a shard lies inside
+    ONE twiddle group, so
     the stage twiddle is a per-shard scalar);
   * the remaining log2(n) - log2(D) stages are purely local.
 

@@ -11,7 +11,7 @@ conveyor with an (S - 1)-step fill/drain bubble.
 
 Why this exists: the reference scales with rayon over independent
 signatures (SURVEY §2.4), i.e. pure DP; PP is the one row of the
-parallelism table with nothing behind it (VERDICT round 1, item 10).
+parallelism table with nothing behind it.
 This module closes the row with a working, bit-exact implementation AND
 the measurement that justifies never promoting it to the production
 engine (tools/pp_vs_dp.py, PARITY_NOTES.md "Pipeline parallelism"):
@@ -19,12 +19,12 @@ engine (tools/pp_vs_dp.py, PARITY_NOTES.md "Pipeline parallelism"):
   * DP moves ZERO bytes between devices — witness generation is
     embarrassingly parallel over signatures, and the "weights" (NTT
     twiddle tables, q-power constants) are a few KB, replicated for
-    free.  PP moves the full activation (mb x n int32) across ICI at
+    free.  PP moves the full activation (mb x n int32) between devices at
     every stage boundary for every microbatch, and still pays the
     (S - 1)/(T + S - 1) bubble.  PP's real use case — model state too
     large for one chip — cannot arise here.
 
-Layout notes (TPU-first): all S stage groups run as one SPMD program —
+Layout notes: all S stage groups run as one SPMD program —
 `lax.switch` on `axis_index` picks the device's group, so XLA compiles
 a single module and the conveyor is a `lax.scan` whose body contains
 exactly one collective-permute (asserted from the compiled HLO in

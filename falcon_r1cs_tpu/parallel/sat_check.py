@@ -1,9 +1,9 @@
 """Device satisfiability checking: (A.w) o (B.w) - C.w == 0 as tensor ops.
 
-The TPU-native replacement for arkworks' `cs.is_satisfied()` (SURVEY.md
+The device replacement for arkworks' `cs.is_satisfied()` (SURVEY.md
 section 7 step 3) and itself a benchmark kernel.
 
-Design: 255-bit field arithmetic is hostile to int32 TPU lanes, but every
+Design: 255-bit field arithmetic is hostile to int32 device lanes, but every
 constraint row of these circuits except the tagged `field_rows` holds
 EXACTLY over the signed integers (see r1cs/coo.py), with
 |A.w| * |B.w| provably below 2^330 (conservative bound: <= nnz_row *
@@ -64,7 +64,9 @@ def _crt_kernel(num_constraints: int, num_primes: int):
             bad = (aw * bw - cw) % m != 0
             return jnp.any(bad & mask[None, :], axis=1)  # (B,)
 
-        fails = jax.vmap(one_prime)(jnp.arange(num_primes))
+        # one prime at a time: a vmap over the primes holds every prime's
+        # (B, nnz) product at once — 71 GiB for 256 Falcon-1024 witnesses
+        fails = jax.lax.map(one_prime, jnp.arange(num_primes))
         return ~jnp.any(fails, axis=0)
 
     return run
@@ -256,7 +258,7 @@ class ResidueSystem:
                 bad = (aw * bw - cw) % m != 0
                 return jnp.any(bad & mask[None, :], axis=1)
 
-            fails = jax.vmap(one_prime)(jnp.arange(len(self.primes)))
+            fails = jax.lax.map(one_prime, jnp.arange(len(self.primes)))
             any_fail = jnp.any(fails, axis=0)          # (B,)
             return jax.lax.pmax(any_fail.astype(jnp.int32), axis)
 

@@ -1,6 +1,6 @@
 """Falcon parameter sets and NTT tables.
 
-TPU-native re-design of the reference's compile-time parameter selection
+Runtime re-design of the reference's compile-time parameter selection
 (`/root/reference/falcon-r1cs/Cargo.toml:28-32` selects falcon-512/falcon-1024
 via cargo features; constants arrive as `falcon_rust::{MODULUS, N, LOG_N,
 NTT_TABLE, SIG_L2_BOUND}`, see `/root/reference/falcon-r1cs/src/gadgets/misc.rs:4`).
@@ -11,8 +11,8 @@ NTT table provenance: the reference derives its plain-form tables from the
 Falcon C `vrfy.c` Montgomery-form tables by dividing by R = 2^16 mod q = 4091
 (`/root/reference/script/ntt_param.sage:132,263`).  We generate the same tables
 from first principles: NTT_TABLE[i] = psi^bitrev(i) mod q with psi a primitive
-2n-th root of unity (psi = 7 for n = 1024, psi = 49 for n = 512); equality with
-the sage-script ground truth is asserted in tests/test_params.py.
+2n-th root of unity (psi = 7 for n = 1024, psi = 49 for n = 512);
+tests/test_params.py checks these definitions and pins a digest of each table.
 """
 
 from __future__ import annotations

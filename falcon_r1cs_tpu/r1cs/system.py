@@ -1,6 +1,6 @@
 """R1CS constraint system: the trace-phase core of the framework.
 
-TPU-native replacement for ark-relations' `ConstraintSystem` (SURVEY.md
+JAX-native replacement for ark-relations' `ConstraintSystem` (SURVEY.md
 section 2.3): variable allocation (instance/witness), linear-combination
 storage, A/B/C sparse matrices, satisfiability, and counters
 (`num_instance_variables / num_witness_variables / num_constraints`, printed
@@ -11,7 +11,7 @@ twice -- once in SETUP mode (shape only, values substituted by one, e.g.
 `/root/reference/falcon-r1cs/src/gadgets/arithmetics.rs:58-67`) and once in
 PROVING mode.  We keep the same two modes.  Tracing happens once per circuit
 shape on host; the compiled artifact (COO matrices + witness layout) is what
-the batched TPU engine consumes.
+the batched device engine consumes.
 
 Variable encoding: instance i -> 2*i, witness j -> 2*j + 1.  The constant
 "one" wire is instance 0 (so `num_instance_variables` starts at 1, matching

@@ -1,6 +1,6 @@
 """Symbolic wires: FpVar and Boolean with arkworks-pinned cost semantics.
 
-TPU-native replacement for ark-r1cs-std's `FpVar` / `Boolean` (SURVEY.md
+JAX-native replacement for ark-r1cs-std's `FpVar` / `Boolean` (SURVEY.md
 section 2.3 and section 7 "hard part 1").  The cost model below is pinned by
 solving the reference's six published golden totals
 (`/root/reference/README.md:41-56`) together with the per-gadget structure;
@@ -28,7 +28,7 @@ published totals force 29 (14 booleanity + 1 decompose + 13 logic + 1
 enforce-true); similarly the 512 norm bound is 52, not 47.  The golden
 totals, not the comments, are the contract.
 
-Witness VALUE semantics (bit-exactness contract, BASELINE.md):
+Witness VALUE semantics (the engines' bit-exactness contract):
   - `or(a, b)` allocates the NOR value (1-a)(1-b) (the result is its Not);
   - `and` allocates the AND value;
   - `conditionally_select` allocates the selected value with constraint

@@ -2,7 +2,7 @@
 
 From-scratch replacement for the reference's ark-groth16 + ark-bls12-381
 stack (`/root/reference/falcon-r1cs/examples/pok_sig.rs:30-47`).  Pure
-Python correctness core; native C (native/groth16_native.c) and TPU MSM
+Python correctness core; native C (native/groth16_native.c) and device MSM
 paths accelerate the hot loops.
 """
 

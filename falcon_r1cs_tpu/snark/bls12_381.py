@@ -10,10 +10,9 @@ the BLS12 family relations tie p and r to the curve parameter x, and the
 hardcoded generators are asserted on-curve; subgroup order and pairing
 bilinearity are covered by tests/test_bls12_381.py.
 
-Design notes (TPU-first framework context): this file is the *host-side
+Design notes: this file is the *host-side
 correctness core*.  The hot paths (multi-scalar multiplication, Fr FFT)
-live in native C (native/groth16_native.c) and on the TPU (ops/ MSM
-kernels); both are differentially tested against this implementation.
+live in native C (native/groth16_native.c) and on the device (snark/tpu_msm.py); both are differentially tested against this implementation.
 
 Representation: functional ops over plain ints / tuples (no classes in the
 hot loops).  Fq2 = (a0, a1) with u^2 = -1; Fq6 = (c0, c1, c2) over Fq2 with

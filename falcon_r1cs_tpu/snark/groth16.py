@@ -186,11 +186,10 @@ def prove(pk: ProvingKey, compiled, assignment, r: int | None = None,
 
     Mirrors `create_random_proof` (pok_sig.rs:37).  r/s override the
     blinding randomness for deterministic tests.  g1_backend selects who
-    runs the G1 MSMs: "auto" resolves through the measured policy in
-    backend_policy.choose_g1_backend (host C at every measured shape on
-    this host; TPU when the native library is absent but Mosaic passes;
-    env-overridable), or pass "native"/"tpu"/"python" explicitly
-    ("tpu" = snark/tpu_msm.py, the device scale-out path; G2 MSMs and
+    runs the G1 MSMs: "auto" resolves through the policy in
+    backend_policy.choose_g1_backend (host C when it builds, pure Python
+    otherwise; env-overridable), or pass "native"/"tpu"/"python"
+    explicitly ("tpu" = snark/tpu_msm.py, the device MSM; G2 MSMs and
     the witness map still follow use_native).
     """
     if r is None:
@@ -201,15 +200,7 @@ def prove(pk: ProvingKey, compiled, assignment, r: int | None = None,
     if g1_backend == "auto":
         from .backend_policy import choose_g1_backend
 
-        pallas_ok = False
-        if native is None:
-            # the probe can only change the outcome when C is absent
-            from ..ops.pallas_support import resolve_backend
-
-            pallas_ok = resolve_backend(None)
-        g1_backend = choose_g1_backend(
-            native_available=native is not None, pallas_ok=pallas_ok, K=1
-        )
+        g1_backend = choose_g1_backend(native_available=native is not None)
 
     # assignment may be a (N, 4) u64 canonical limb matrix (e.g. derived
     # from the device packer via points.packed_to_limb_rows): the native

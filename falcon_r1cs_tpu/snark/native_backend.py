@@ -1,6 +1,6 @@
 """ctypes bindings for native/groth16_native.c (the MSM/FFT hot path).
 
-Build-on-first-use like falcon_r1cs_tpu/native; every entry point is
+Built on first use like falcon_r1cs_tpu/native (native/build.py); every entry point is
 differentially tested against the pure-Python implementations
 (tests/test_snark_native.py).  Interchange forms are defined in points.py
 (standard-form u64 limbs).
@@ -9,7 +9,6 @@ differentially tested against the pure-Python implementations
 from __future__ import annotations
 
 import ctypes
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -20,8 +19,9 @@ from .points import G1Array, G2Array, ints_to_limbs, limbs_to_int
 from .qap import qap_domain
 
 _HERE = Path(__file__).resolve().parent
-_SRC = _HERE.parent / "native" / "groth16_native.c"
-_SO = _HERE.parent / "native" / "_groth16_native.so"
+_NATIVE = _HERE.parent / "native"
+_SRC = _NATIVE / "groth16_native.c"
+_HEADERS = [_NATIVE / "adx_mont.h", _NATIVE / "ifma52.h"]
 
 _lib = None
 _available: bool | None = None
@@ -31,29 +31,23 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 
 
-def _build() -> None:
-    cmd = [
-        "gcc", "-O3", "-shared", "-fPIC", "-march=native", "-fopenmp",
-        str(_SRC), "-o", str(_SO),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        subprocess.run(
-            ["gcc", "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(_SO)],
-            check=True,
-            capture_output=True,
-        )
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        _build()
-    lib = ctypes.CDLL(str(_SO))
+    from ..native.build import build_library
+
+    common = ["gcc", "-O3", "-shared", "-fPIC"]
+    so = build_library(
+        "groth16_native",
+        [_SRC, *_HEADERS],
+        # the portable build is the fallback where OpenMP is missing
+        [common + ["-march=native", "-fopenmp", str(_SRC)],
+         common + [str(_SRC)]],
+    )
+    lib = ctypes.CDLL(str(so))
     lib.g16_selftest.restype = ctypes.c_int
+    lib.g16_field_tier.restype = ctypes.c_char_p
     lib.g1_fixed_base_batch.argtypes = [_U64P, ctypes.c_long, _U64P, _U64P, _U8P]
     lib.g2_fixed_base_batch.argtypes = [_U64P, ctypes.c_long, _U64P, _U64P, _U8P]
     for fn in (lib.g1_msm, lib.g2_msm, lib.g1_msm_pre):
@@ -82,6 +76,12 @@ def available() -> bool:
         except Exception:
             _available = False
     return _available
+
+
+def field_tier() -> str:
+    """The field-arithmetic tier the library was compiled with:
+    "ifma52+adx", "ifma52", "adx" or "portable"."""
+    return _load().g16_field_tier().decode()
 
 
 def _p64(a: np.ndarray):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from pathlib import Path
 
 
 @dataclasses.dataclass
@@ -19,16 +20,17 @@ class RuntimeConfig:
     # validate gadget inputs at trace time (the runtime analog of the
     # reference's #[cfg(not(test))] panic guards)
     validate: bool = True
-    # witness engine limb-NTT backend: None = auto (try the fused Pallas
-    # kernel, fall back to the XLA path if Mosaic is unavailable);
-    # True = require Pallas; False = XLA only
-    use_pallas_ntt: bool | None = None
-    # pallas batch block (16 measured best on v5e; see ops/pallas_ntt.py)
-    pallas_block: int = 16
+    # witness engine hint-NTT backend (ops/backend.py): None = the
+    # platform's choice (the CUDA kernel on a GPU, XLA elsewhere);
+    # True = require the kernel (raises where there is none); False = XLA
+    use_ntt_kernel: bool | None = None
     # CRT satisfiability primes
     num_crt_primes: int = 24
-    # compiled-artifact cache directory
-    artifact_cache: str = os.path.expanduser("~/.cache/falcon_r1cs_tpu")
+    # compiled-artifact cache directory (compiled R1CS, CRS files):
+    # gitignored, inside the checkout
+    artifact_cache: str = str(
+        Path(__file__).resolve().parents[2] / ".artifact_cache"
+    )
 
     @classmethod
     def from_env(cls, prefix: str = "FALCON_TPU_") -> "RuntimeConfig":
@@ -37,8 +39,8 @@ class RuntimeConfig:
             raw = os.environ.get(prefix + f.name.upper())
             if raw is None:
                 continue
-            if f.name == "use_pallas_ntt":
-                cfg.use_pallas_ntt = (
+            if f.name == "use_ntt_kernel":
+                cfg.use_ntt_kernel = (
                     None if raw.lower() == "auto"
                     else raw.lower() in ("1", "true", "yes")
                 )

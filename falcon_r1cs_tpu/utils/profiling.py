@@ -1,10 +1,10 @@
 """Device profiling and robust throughput measurement.
 
-The reference has no profiling subsystem (SURVEY.md section 5); the TPU
+The reference has no profiling subsystem (SURVEY.md section 5); this
 framework provides jax.profiler trace capture plus a drift-robust
-throughput measurement: on tunneled/remote devices, per-call wall clock is
-dominated by round-trip latency, so throughput is estimated from the SLOPE
-of total time vs pipelined iteration count (the intercept absorbs latency).
+throughput measurement: per-call wall clock carries fixed dispatch and
+synchronization latency, so throughput is estimated from the SLOPE of
+total time vs pipelined iteration count (the intercept absorbs latency).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""Batched TPU witness engine for the verify-with-NTT circuit.
+"""Batched device witness engine for the verify-with-NTT circuit.
 
 The execute-phase twin of the trace layer (SURVEY.md section 7 step 2): one
 jitted function computes EVERY witness value of
 `FalconNTTVerificationCircuit` for a whole batch of signatures as dense
 tensors, bit-exactly equal to the host trace's `cs.witness_values` (the
-BASELINE.md contract).  Hot paths: the limbed bound-tracked NTT
+parity contract).  Hot paths: the limbed bound-tracked NTT
 (ops/ntt_limb.py) and vectorized hint/bit/boolean-chain computation.
 
 Witness layout (allocation order of the circuit, per signature; n = N):
@@ -51,7 +51,7 @@ def _bits(x, count):
 
     int8 output: bit and boolean-chain witnesses are the bulk of the
     engine's HBM writes, and at 1 byte instead of 4 the write-bound tail
-    of the engine shrinks ~3x (BASELINE.md roofline accounting)."""
+    of the engine shrinks ~3x."""
     shifts = jnp.arange(count, dtype=jnp.int32)
     return jnp.bitwise_and(x[..., None] >> shifts, 1).astype(jnp.int8)
 
@@ -64,8 +64,8 @@ def _lt_q_chain(bits14, val=None):
     When the source VALUE (int32 in [0, 2^14)) is given, the prefix
     products collapse to masked zero-tests — w_k = prod_{i<=k}(1-b_i) is
     just [val mod 2^(k+1) == 0] — one fused elementwise op instead of a
-    cumprod, whose log-step pad/multiply lowering was ~13% of engine
-    device time across the four chain call sites (profile_engine)."""
+    cumprod, whose log-step pad/multiply lowering costs several passes
+    at each of the four chain call sites."""
     if val is not None:
         masks = jnp.asarray(
             [(1 << (k + 1)) - 1 for k in range(1, 12)], jnp.int32
@@ -114,8 +114,8 @@ def _norm_block(c):
 def _norm_block_t(c):
     """_norm_block with the FEATURE axis OUTERMOST: bits16 (16, B, 2n).
 
-    The feature-minor stack (B, 2n, 16) forced XLA into a 0.19 ms layout
-    copy per 1024-batch: a concatenate fusion wants the concat axis
+    The feature-minor stack (B, 2n, 16) forces XLA into a layout copy
+    of the whole segment: a concatenate fusion wants the concat axis
     outermost ({2,0,1}), the row-major output does not.  Putting the
     feature axis first makes them agree — the same trick the (L, B, n)
     NTT hint tensors already use.  Consumers (witness/layout.py, the
@@ -251,13 +251,13 @@ class WitnessBatch:
 
 
 def generate_witness_ntt(
-    sig, pk_ntt, hm_ntt, params: FalconParams, use_pallas: bool = False
+    sig, pk_ntt, hm_ntt, params: FalconParams, backend: str = "xla"
 ):
     """All witness values of FalconNTTVerificationCircuit for a batch.
 
     Inputs: (B, n) int32 arrays: sig lifted to [0, q), pk and hm in NTT
     domain [0, q).  Pure function of its inputs; jit/pjit over a batch-
-    sharded mesh.
+    sharded mesh.  backend: the hint-NTT implementation (ops/backend.py).
     """
     n = params.n
     sig = sig.astype(jnp.int32)
@@ -268,13 +268,11 @@ def generate_witness_ntt(
     # clear NTT of sig, so the v derivation reuses it (one NTT saved)
     from ..ops.ntt_limb import intt_then_hints, ntt_hints
 
-    sig_t, sig_b = ntt_hints(sig, params, use_pallas)
+    sig_t, sig_b = ntt_hints(sig, params, backend)
 
-    # v = hm - sig*pk mod (q, x^n+1): on the Pallas backend the INTT is
-    # fused into the v hint kernel as a VMEM prologue (one HBM pass
-    # instead of log_n XLA butterfly round trips)
+    # v = hm - sig*pk mod (q, x^n+1)
     w = sub_mod_q(hm_ntt, mul_mod_q(sig_b, pk_ntt))
-    v_t, v_b, v = intt_then_hints(w, params, use_pallas)
+    v_t, v_b, v = intt_then_hints(w, params, backend)
 
     # range proof chains on v
     v_bits = _bits(v, 14)
@@ -331,33 +329,22 @@ def generate_witness_ntt(
 
 
 def jitted_engine(n: int):
-    """jit-compiled witness generator for the given parameter set.
+    """jit-compiled witness generator for the given parameter set, on the
+    hint-NTT backend the platform and runtime config select
+    (ops/backend.py).  Cached per (n, backend), so a config change takes
+    effect on the next lookup."""
+    from ..ops.backend import configured_ntt_backend
 
-    Backend policy (utils/config.use_pallas_ntt): True/False are strict;
-    None (default) resolves via the Pallas capability probe
-    (ops/pallas_support.pallas_available — a tiny kernel compiled once per
-    platform), NOT by matching error-message text.  The cache is keyed on
-    (preference, platform) so set_config() changes and platform switches
-    take effect on the next lookup."""
-    import jax as _jax
-
-    from ..utils.config import get_config
-
-    return _jitted_engine(
-        n, get_config().use_pallas_ntt, _jax.default_backend()
-    )
+    return _jitted_engine(n, configured_ntt_backend())
 
 
 @functools.lru_cache(maxsize=None)
-def _jitted_engine(n: int, pref, platform: str):
-    from ..ops.pallas_support import resolve_backend
-
+def _jitted_engine(n: int, backend: str):
     params = get_params(n)
-    use_pallas = resolve_backend(pref)
 
     @jax.jit
     def run(sig, pk_ntt, hm_ntt):
-        wb = generate_witness_ntt(sig, pk_ntt, hm_ntt, params, use_pallas)
+        wb = generate_witness_ntt(sig, pk_ntt, hm_ntt, params, backend)
         return _seg_dict(wb)
 
     return run

@@ -53,7 +53,7 @@ def _modq_tail(b):
 
 
 def generate_witness_dual(
-    sig_signed, pk_ntt, hm_ntt, params: FalconParams, use_pallas: bool = False
+    sig_signed, pk_ntt, hm_ntt, params: FalconParams, backend: str = "xla"
 ):
     """All witness values of FalconDualNTTVerificationCircuit for a batch.
 
@@ -72,8 +72,8 @@ def generate_witness_dual(
     # reduced outputs replace a separate clear NTT for the v derivation
     from ..ops.ntt_limb import ntt_hints
 
-    sp_t, sp_b = ntt_hints(sig_pos, params, use_pallas)
-    sn_t, sn_b = ntt_hints(sig_neg, params, use_pallas)
+    sp_t, sp_b = ntt_hints(sig_pos, params, backend)
+    sn_t, sn_b = ntt_hints(sig_neg, params, backend)
 
     # v = hm - sig*pk mod (q, x^n+1) via NTT domain
     sig_ntt = sub_mod_q(sp_b, sn_b)
@@ -85,8 +85,8 @@ def generate_witness_dual(
     sig_orth = sig_pos * sig_neg          # (B, n)
     v_orth = v_pos * v_neg
 
-    vp_t, vp_b = ntt_hints(v_pos, params, use_pallas)
-    vn_t, vn_b = ntt_hints(v_neg, params, use_pallas)
+    vp_t, vp_b = ntt_hints(v_pos, params, backend)
+    vn_t, vn_b = ntt_hints(v_neg, params, backend)
 
     # pointwise: left = mod_q(hm + vn + sn*pk), right = mod_q(vp + sp*pk)
     mul_l = sn_b * pk_ntt
@@ -95,7 +95,7 @@ def generate_witness_dual(
     t_r, b_r = fast_divmod_q(vp_b + mul_r)
     # value/bit split (engine.py layout note): 54 of the 60 pointwise
     # slots are int8 bits/chains; materializing them in a single int32
-    # (B, n, 60) concat cost 0.33 ms of pure HBM writes per 1024-batch
+    # (B, n, 60) concat would write 4x their bytes
     pw_vals = jnp.stack([mul_l, t_l, b_l, mul_r, t_r, b_r], axis=0)
     pw_tail_l = _modq_tail(b_l)
     pw_tail_r = _modq_tail(b_r)
@@ -129,26 +129,19 @@ def generate_witness_dual(
 
 
 def jitted_engine_dual(n: int):
-    """Backend policy identical to engine.jitted_engine (capability-probe
-    resolution); cache keyed on (preference, platform)."""
-    import jax as _jax
+    """Backend policy identical to engine.jitted_engine; cached per
+    (n, backend)."""
+    from ..ops.backend import configured_ntt_backend
 
-    from ..utils.config import get_config
-
-    return _jitted_engine_dual(
-        n, get_config().use_pallas_ntt, _jax.default_backend()
-    )
+    return _jitted_engine_dual(n, configured_ntt_backend())
 
 
 @functools.lru_cache(maxsize=None)
-def _jitted_engine_dual(n: int, pref, platform: str):
-    from ..ops.pallas_support import resolve_backend
-
+def _jitted_engine_dual(n: int, backend: str):
     params = get_params(n)
-    use_pallas = resolve_backend(pref)
     return jax.jit(
         lambda sig, pk, hm: generate_witness_dual(
-            sig, pk, hm, params, use_pallas
+            sig, pk, hm, params, backend
         )
     )
 

@@ -3,8 +3,8 @@
 The heavy section is the n x n negacyclic product matrix: column i of the
 reversed [-pk || pk] buffer against sig -- every one of the n^2 products is
 itself a witness (the mul wires inside inner_product_mod), so the engine's
-cost is dominated by materializing the (B, n, n) product tensor; the sums
-ride the MXU/VPU.
+cost is dominated by materializing the (B, n, n) product tensor, which XLA
+writes once while reducing its row sums.
 
 Witness layout (allocation order of FalconSchoolBookVerificationCircuit):
   sig (n)
@@ -38,9 +38,7 @@ Q_INV_MOD_P = pow(Q, FIELD_MODULUS - 2, FIELD_MODULUS)
 NEG_Q_INV_MOD_P = FIELD_MODULUS - Q_INV_MOD_P
 
 
-def generate_witness_schoolbook(
-    sig, pk, hm, params: FalconParams, use_pallas: bool = False
-):
+def generate_witness_schoolbook(sig, pk, hm, params: FalconParams):
     """All witness values for a batch.  Inputs (B, n) int32: sig lifted to
     [0, q); pk and hm in the COEFFICIENT domain (they are the circuit's
     public inputs here, unlike the NTT circuits)."""
@@ -60,27 +58,18 @@ def generate_witness_schoolbook(
         [v[..., None], v_bits, _lt_q_chain(v_bits, v)], axis=-1
     )  # (B, n, 28)
 
-    if use_pallas:
-        # streaming kernel: one HBM pass for prods + both half-sums
-        # (2.5x the XLA formulation — ops/pallas_schoolbook.py)
-        from ..ops.pallas_schoolbook import schoolbook_prods_pallas
+    # buffer = reversed([q - pk || pk]); column i = buf[n-1-i:2n-1-i]
+    buf = jnp.flip(jnp.concatenate([Q - pk, pk], axis=-1), axis=-1)  # (B, 2n)
+    # cols[b, i, j] = buf[b, n-1-i+j]: one gather into (B, n, n)
+    idx = (n - 1) - jnp.arange(n)[:, None] + jnp.arange(n)[None, :]
+    cols = buf[:, idx]                       # (B, n, n): cols[b, i, j]
+    prods = sig[:, None, :] * cols           # (B, n, n) mul wires
 
-        prods, H, L = schoolbook_prods_pallas(sig, pk, n)
-    else:
-        # buffer = reversed([q - pk || pk]); column i = buf[n-1-i:2n-1-i]
-        buf = jnp.flip(
-            jnp.concatenate([Q - pk, pk], axis=-1), axis=-1
-        )  # (B, 2n)
-        # cols[b, i, j] = buf[b, n-1-i+j]: one gather into (B, n, n)
-        idx = (n - 1) - jnp.arange(n)[:, None] + jnp.arange(n)[None, :]
-        cols = buf[:, idx]                       # (B, n, n): cols[b, i, j]
-        prods = sig[:, None, :] * cols           # (B, n, n) mul wires
-
-        # exact 38-bit sums via 16-bit split accumulation
-        lo = jnp.sum(jnp.bitwise_and(prods, 0xFFFF), axis=-1)  # < n*2^16
-        hi = jnp.sum(prods >> 16, axis=-1)                     # < n*2^12
-        H = hi + (lo >> 16)
-        L = jnp.bitwise_and(lo, 0xFFFF)
+    # exact 38-bit sums via 16-bit split accumulation
+    lo = jnp.sum(jnp.bitwise_and(prods, 0xFFFF), axis=-1)  # < n*2^16
+    hi = jnp.sum(prods >> 16, axis=-1)                     # < n*2^12
+    H = hi + (lo >> 16)
+    L = jnp.bitwise_and(lo, 0xFFFF)
     tq, r = fast_divmod_q(H)
     tl, c = fast_divmod_q((r << 16) + L)
     t = (tq << 16) + tl                                      # quotient hint
@@ -112,8 +101,8 @@ def generate_witness_schoolbook(
     valid = jnp.all(ok, axis=-1).astype(jnp.int32)
 
     # the main-loop block is kept as separate tensors: concatenating the
-    # (B, n, n) product tensor into one (B, n, n+34) array cost a full
-    # extra copy of the dominant buffer (~25% of device time)
+    # (B, n, n) product tensor into one (B, n, n+34) array costs a full
+    # extra copy of the dominant buffer
     tc = jnp.stack([t, c], axis=-1)                       # (B, n, 2)
     c_tail = jnp.concatenate([c_bits, c_chain], axis=-1)  # (B, n, 27)
     iseq = jnp.stack([neq1, m1, neq2, m2, or_wire], axis=-1)  # (B, n, 5)
@@ -142,26 +131,13 @@ def generate_witness_schoolbook(
     }
 
 
-def jitted_engine_schoolbook(n: int):
-    """Backend policy identical to engine.jitted_engine (capability-probe
-    resolution); cache keyed on (preference, platform)."""
-    from ..utils.config import get_config
-
-    return _jitted_engine_schoolbook(
-        n, get_config().use_pallas_ntt, jax.default_backend()
-    )
-
-
 @functools.lru_cache(maxsize=None)
-def _jitted_engine_schoolbook(n: int, pref, platform: str):
-    from ..ops.pallas_support import resolve_backend
-
+def jitted_engine_schoolbook(n: int):
+    """jit-compiled schoolbook witness generator.  It has no hint NTT, so
+    every platform runs the same XLA program."""
     params = get_params(n)
-    use_pallas = resolve_backend(pref)
     return jax.jit(
-        lambda sig, pk, hm: generate_witness_schoolbook(
-            sig, pk, hm, params, use_pallas
-        )
+        lambda sig, pk, hm: generate_witness_schoolbook(sig, pk, hm, params)
     )
 
 

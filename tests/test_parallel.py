@@ -98,17 +98,20 @@ def test_sharded_engine_schoolbook_matches_single_device(rng):
 
 
 def test_pallas_capability_probe():
-    """The probe returns False on CPU (no Mosaic) and is what the engines
-    key their backend on — no error-message matching anywhere."""
-    from falcon_r1cs_tpu.ops.pallas_support import (
-        pallas_available,
-        resolve_backend,
+    """The hint-NTT backend is keyed on the platform alone — no probe
+    kernel, no error-message matching: the CPU runs the XLA path, a GPU
+    the CUDA kernel, and the engines here use the CPU's choice."""
+    from falcon_r1cs_tpu.ops.backend import (
+        KERNELS,
+        configured_ntt_backend,
+        ntt_backend,
     )
 
-    assert pallas_available("cpu") is False
-    assert resolve_backend(True) is True
-    assert resolve_backend(False) is False
-    assert resolve_backend(None) is pallas_available(jax.default_backend())
+    assert jax.default_backend() == "cpu"
+    assert configured_ntt_backend() == "xla"
+    assert KERNELS == {"gpu": "cuda"}
+    assert ntt_backend(None, "gpu") == "cuda"
+    assert ntt_backend(False, "gpu") == "xla"
 
 
 def test_scaling_sweep_runs():
@@ -135,10 +138,12 @@ def test_counter_log():
 
 def test_runtime_config_env(monkeypatch):
     monkeypatch.setenv("FALCON_TPU_DEFAULT_N", "512")
-    monkeypatch.setenv("FALCON_TPU_USE_PALLAS_NTT", "true")
+    monkeypatch.setenv("FALCON_TPU_USE_NTT_KERNEL", "true")
     cfg = RuntimeConfig.from_env()
     assert cfg.default_n == 512
-    assert cfg.use_pallas_ntt is True
+    assert cfg.use_ntt_kernel is True
+    monkeypatch.setenv("FALCON_TPU_USE_NTT_KERNEL", "auto")
+    assert RuntimeConfig.from_env().use_ntt_kernel is None
 
 
 def test_sharded_sat_check_matches_single(rng, inst_512):

@@ -69,7 +69,7 @@ def worker(proc_id: int, port: int, num_procs: int = 2) -> None:
           f"(procs={jax.process_count()}, devices={len(jax.devices())})",
           flush=True)
 
-    # throughput point (VERDICT r3 #7): a timed cross-process sharded-
+    # throughput point: a timed cross-process sharded-
     # engine loop at a real batch.  Every worker must run every step
     # (collective programs are SPMD); worker 0's clock is the record.
     import time
